@@ -2,7 +2,7 @@
 
 Launched by ``test_multihost.py`` as N separate processes, each with its own
 4-virtual-CPU-device backend, forming a jax.distributed cluster: the CPU
-stand-in for a multi-host TPU pod (DCN axis = process boundary).  Each worker
+stand-in for a multi-host cluster (DCN axis = process boundary).  Each worker
 runs the SAME global sweep over a process-spanning mesh and checks the
 all-gathered result against its local unsharded solve.
 """
@@ -17,7 +17,7 @@ def main() -> None:
 
     import numpy as np
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
     ok = pm.initialize_distributed(
         coordinator_address=f"localhost:{port}",
@@ -28,8 +28,8 @@ def main() -> None:
     assert jax.process_count() == nproc
     assert len(jax.devices()) == nproc * len(jax.local_devices())
 
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
 
     mesh = pm.multihost_mesh()
     assert mesh is not None and "dcn" in mesh.axis_names, mesh

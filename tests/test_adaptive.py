@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import adaptive as ad
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import integrators as integ
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs, rhs_yaman
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops import adaptive as ad
+from psa_simulation_ode_rk_mvp_dispersion.ops import integrators as integ
+from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs, rhs_yaman
 
 
 def _rhs_exp(z, y, params):

@@ -4,9 +4,9 @@ undepleted-pump cosh/sinh validation pattern SURVEY.md section 4 calls for)."""
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import analytic as an
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops import analytic as an
+from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
 
 
 def _numeric_gain(delta_beta, *, P1=0.05, P2=0.05, gamma=10.0, L=0.2,

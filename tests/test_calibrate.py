@@ -12,8 +12,9 @@ import jax
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
+from psa_simulation_ode_rk_mvp_dispersion.parallel.calibrate import _resolve_precision
 
 P_IN = [0.5, 0.5, 1e-5, 0.0]
 
@@ -79,7 +80,7 @@ def test_pulse_model_parity_and_spectrum_fit():
     recovers (gamma, beta2) to a few percent inside the right
     dispersion-sign basin (calibration 2026-08-18: rels 8.8e-2 /
     4.6e-2, rms 0.14 dB at 400 steps, lr 0.1)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
+    from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
 
     T0 = 1e-12
     grid = gn.TimeGrid.for_pulse(T0, n_samples=128)
@@ -174,7 +175,7 @@ def test_fit_gain_experiment_roundtrip(tmp_path):
     sweep's own gamma (10 1/(W km)) and near-zero alpha/offset from the
     saved NPZ alone (calibration 2026-08-18: exact gamma, rms 1.5e-4 dB,
     early-stopped at 136/400 steps)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu import experiments as ex
+    from psa_simulation_ode_rk_mvp_dispersion import experiments as ex
 
     ex.mismatch_scan(span=30, n_points=16, show=False,
                      save_dir=str(tmp_path), verbose=False)
@@ -188,16 +189,13 @@ def test_fit_gain_experiment_roundtrip(tmp_path):
 
 
 def test_x32_tier_matches_x64_oracle():
-    """precision='x32' (the on-chip tier, VERDICT r3 #6) on the CPU
-    backend: forward gain matches the x64 oracle to f32 class, the
-    gradient to ~1e-3 relative, and a full fit recovers the same
-    parameters.  The identical path runs on-chip under PSA_TEST_TPU=1
-    (this same test; the tier defaults to 'x32' there)."""
+    """precision='x32': forward gain matches the x64 oracle to f32 class,
+    the gradient to ~1e-3 relative, and a full fit recovers the same
+    parameters."""
     import jax.numpy as jnp
 
     cfg = _cfg()
-    g64 = psa.make_gain_model(cfg, p_in=P_IN) if (
-        jax.default_backend() == "cpu") else None
+    g64 = psa.make_gain_model(cfg, p_in=P_IN)
     g32 = psa.make_gain_model(cfg, p_in=P_IN, precision="x32")
 
     def co(rdt):
@@ -210,14 +208,11 @@ def test_x32_tier_matches_x64_oracle():
         gamma=gm, alpha=jnp.asarray(2e-4, jnp.float32),
         delta_beta=jnp.asarray(-3e-3, jnp.float32))))(
             jnp.asarray(0.0115, jnp.float32)))
-    if g64 is not None:
-        v64 = float(g64(co(jnp.float64)))
-        gr64 = float(jax.grad(lambda gm: g64(RHSCoeffs(
-            gamma=gm, alpha=2e-4, delta_beta=-3e-3)))(0.0115))
-        assert v32 == pytest.approx(v64, rel=2e-4, abs=1e-4)
-        assert gr32 == pytest.approx(gr64, rel=2e-3)
-    else:
-        assert np.isfinite(v32) and np.isfinite(gr32)
+    v64 = float(g64(co(jnp.float64)))
+    gr64 = float(jax.grad(lambda gm: g64(RHSCoeffs(
+        gamma=gm, alpha=2e-4, delta_beta=-3e-3)))(0.0115))
+    assert v32 == pytest.approx(v64, rel=2e-4, abs=1e-4)
+    assert gr32 == pytest.approx(gr64, rel=2e-3)
 
     # full x32 fit recovers the synthetic truth (same bar as the x64 fit)
     truth = dict(gamma=0.0115, alpha=2.0e-4, dbeta_offset=-3e-3)
@@ -241,9 +236,9 @@ def test_x32_tier_matches_x64_oracle():
 
 def test_precision_tier_validation():
     """The AD model builders reject df32 with a pointer to the hybrid
-    fit; x64 on a non-CPU backend raises (covered implicitly on CPU: the
-    guard path is exercised by the TPU lane)."""
+    fit, and default to x64 on every backend."""
     cfg = _cfg()
+    assert _resolve_precision(None, "x") == "x64"
     with pytest.raises(ValueError, match="df32"):
         psa.make_gain_model(cfg, p_in=P_IN, precision="df32")
     with pytest.raises(ValueError, match="df32"):
@@ -257,22 +252,19 @@ def test_df32_hybrid_fit_reaches_oracle_grade():
     floor by orders of magnitude -- the forward is the SAME engine that
     generated the data, so LM can drive the residual to numerical zero,
     including alpha, the weakly identified valley direction adam leaves
-    at ~10% (module docstring).  On CPU the engine forward is the x64
-    scan (two-float XLA:CPU compiles pathologically); under
-    PSA_TEST_TPU=1 this same test runs the df32 pallas kernel on-chip."""
+    at ~10% (module docstring).  The engine forward is x64."""
     cfg = _cfg()
     truth = dict(gamma=0.0115, alpha=2.0e-4, dbeta_offset=-3e-3)
     db = np.linspace(-0.05, 0.03, 16)
     # synthesize the measurement with the ENGINE (what the polish runs),
     # at the tier the backend will use -- the explore stage's AD model is
     # bitwise-comparable by the module's measurement convention
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.calibrate import (
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.calibrate import (
         _engine_gain_curve_fn,
     )
 
-    fwd = "x64" if jax.default_backend() == "cpu" else "df32"
     gen = _engine_gain_curve_fn(cfg, db, p_in=P_IN, phase_in=None, wave=2,
-                                forward_precision=fwd)
+                                forward_precision="x64")
     z = float(cfg.z_max)
     th_true = np.array([np.log(truth["gamma"]), truth["alpha"] * z,
                         truth["dbeta_offset"] * z])

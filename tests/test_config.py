@@ -2,8 +2,8 @@
 
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.config import (
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.config import (
     SimulationConfig,
     custom_simulation_config,
     default_simulation_config,

@@ -2,12 +2,10 @@
 precision, complex ops, and <=1e-9 end-to-end parity with the f64 path using
 only float32 hardware arithmetic.
 
-The jitted df32 *solver* (lax.scan) tests are skipped on CPU by default:
-XLA:CPU spends ~6 minutes compiling the two-float scan body regardless of
-length (a CPU-backend pathology; the TPU backend compiles the full 2500-step
-program in ~8 s and bench.py validates 1e-12-level parity there every round).
-Set PSA_DF32_FULL=1 to run them on CPU anyway.  Stepper correctness on CPU is
-covered by the eager (scan-free) integration test below.
+The jitted df32 *solver* (lax.scan) tests are skipped by default: XLA:CPU
+spends ~6 minutes compiling the two-float scan body regardless of length (a
+CPU-backend pathology).  Set PSA_DF32_FULL=1 to run them anyway.  Stepper
+correctness is covered by the eager (scan-free) integration test below.
 """
 
 import os
@@ -17,26 +15,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-ON_TPU = jax.default_backend() == "tpu"
-SKIP_SCAN_SOLVER = not ON_TPU and not os.environ.get("PSA_DF32_FULL")
-# scan-solver tests that need no f64 comparison: run on TPU or opt-in CPU
+SKIP_SCAN_SOLVER = not os.environ.get("PSA_DF32_FULL")
 scan_solver = pytest.mark.skipif(
     SKIP_SCAN_SOLVER,
-    reason="XLA:CPU two-float scan compile pathology; validated on TPU via bench.py",
+    reason="XLA:CPU two-float scan compile pathology (opt in: PSA_DF32_FULL=1)",
 )
-# tests comparing against the x64 solver additionally need f64 -> CPU opt-in only
-scan_solver_vs_x64 = pytest.mark.skipif(
-    SKIP_SCAN_SOLVER or ON_TPU,
-    reason="needs both the df32 scan solver AND f64 (CPU opt-in via PSA_DF32_FULL)",
-)
-tpu_only = pytest.mark.skipif(
-    not ON_TPU, reason="compiled pallas kernels require the TPU backend"
-)
+scan_solver_vs_x64 = scan_solver
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import df32_solver as dfs
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import twofloat as tfm
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops import df32_solver as dfs
+from psa_simulation_ode_rk_mvp_dispersion.ops import twofloat as tfm
+from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
 
 # two-float f32 has ~49-bit precision ~ 1.8e-15; allow slack for chains
 TF_TOL = 1e-13
@@ -116,10 +105,9 @@ def test_ctf_abs2_and_mul_i_real():
     np.testing.assert_allclose(got2, 1j * r * x, rtol=1e-12, atol=1e-15)
 
 
-@pytest.mark.skipif(ON_TPU, reason="comparison RHS needs complex128 (no f64 on TPU)")
 def test_df32_rhs_matches_x64_rhs():
     """One df32 RHS evaluation vs the complex128 rotating-frame RHS."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import (
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import (
         RHSCoeffs, rhs_yaman_autonomous,
     )
 
@@ -150,9 +138,9 @@ def test_df32_solver_trajectory_parity_with_x64():
     solver: must be far inside the 1e-9 target.
 
     (Kept to 250 steps because XLA:CPU compiles the two-float program
-    pathologically slowly -- minutes; the TPU backend compiles the full
-    2500-step program in ~8 s.  Error accumulation is ~linear in steps, and
-    observed parity here is ~1e-13, four orders under the target.)"""
+    pathologically slowly -- minutes.  Error accumulation is ~linear in
+    steps, and observed parity here is ~1e-13, four orders under the
+    target.)"""
     B = 8
     rng = np.random.default_rng(10)
     p_in = np.array([0.1, 0.1, 1e-7, 0.0])
@@ -166,7 +154,7 @@ def test_df32_solver_trajectory_parity_with_x64():
     )
     assert np.all(r32.ok)
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
 
     cfg = psa.custom_simulation_config(z_max=50.0, dz=0.2, precision="x64")
     r64 = sw.solve_batch(
@@ -261,119 +249,6 @@ def test_df32_rk4_eager_steps_match_f64_rk4():
     assert rel < 1e-12, rel
 
 
-@tpu_only
-def test_pallas_df32_bit_identical_to_scan_df32():
-    """The fused two-float Pallas kernel must match the scan-based df32
-    solver (bit-identical on TPU, where both compile; the CPU interpreter's
-    compile is pathological so this is TPU/opt-in like the scan tests)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import pallas_df32 as pdf
-
-    B = 6
-    rng = np.random.default_rng(3)
-    A0 = np.broadcast_to(np.sqrt([0.1, 0.1, 1e-6, 0]).astype(np.complex128),
-                         (B, 4)).copy()
-    gamma = np.full(B, 1.5)
-    alpha = np.full(B, 1.15e-2)
-    dbeta = rng.uniform(-1, 1, B)
-    kw = dict(dz_m=0.2, n_steps=20, save_every=10)
-    r_pl = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta, **kw)
-    r_sc = dfs.solve_batch_df32(A0, gamma, alpha, dbeta, **kw)
-    np.testing.assert_allclose(r_pl.P_max, r_sc.P_max, rtol=1e-12, atol=0)
-    np.testing.assert_allclose(r_pl.A_end, r_sc.A_end, rtol=1e-12, atol=0)
-    np.testing.assert_array_equal(r_pl.ok, r_sc.ok)
-
-
-@pytest.mark.parametrize("const_mask", [
-    (False, False, False, False),   # everything varies per instance
-    (True, True, False, True),      # the gain-sweep shape: only dbeta varies
-    (True, False, False, False),    # mixed constness inside one buffer
-])
-def test_raw_lowering_packs_bit_identical(const_mask):
-    """Round-5 raw-input lowering (VERDICT r4 #1): the device-side plane
-    packing (``_pack_grouped_jnp`` under jit) must be BIT-identical to the
-    host packing contract in ``ops/lane_groups`` -- plane packing is pure
-    data movement and the +-power-of-two scalings commute exactly with the
-    f64 -> two-f32 split.  Runs on CPU (no kernel, no two-float chains)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import pallas_df32 as pdf
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.lane_groups import (
-        grouped_pad_target, pad_rows, plane_state, rows_scalar,
-    )
-
-    g, block = 8, 256
-    B = 20
-    rng = np.random.default_rng(11)
-    gc, ac, dc, a0c = const_mask
-    gamma = np.full(B, 1.5) if gc else rng.uniform(0.5, 2.0, B)
-    alpha = np.full(B, 1.15e-2) if ac else rng.uniform(0.0, 0.1, B)
-    dbeta = np.full(B, 0.3) if dc else rng.uniform(-1, 1, B)
-    row = np.sqrt([0.1, 0.1, 1e-6, 0]) * np.exp(1j * rng.uniform(0, 1, 4))
-    A0 = (np.broadcast_to(row, (B, 4)).copy() if a0c
-          else rng.normal(size=(B, 4)) + 1j * rng.normal(size=(B, 4)))
-    dz_m = 0.2
-
-    Bp = grouped_pad_target(B, g=g, block=block, ndev=1)
-    pad = Bp - B
-
-    # host truth: the documented lane_groups layout (the mesh-path packing)
-    A0p = pad_rows(A0, pad)
-    ga, al, db = (pad_rows(x, pad) for x in (gamma, alpha, dbeta))
-    G = 4 * g
-    det_inst = np.stack([-0.5 * db, -0.5 * db, np.zeros(Bp), np.zeros(Bp)],
-                        axis=-1)
-    coef_host = np.zeros((8 * G + 6, Bp // g), dtype=np.float32)
-    for k, rows in enumerate(
-        (rows_scalar(ga, g), rows_scalar(2.0 * ga, g),
-         rows_scalar(-0.5 * al, g), plane_state(det_inst, g))
-    ):
-        hi, lo = pdf._split_rows_f64(rows)
-        coef_host[2 * k * G:(2 * k + 1) * G] = hi
-        coef_host[(2 * k + 1) * G:(2 * k + 2) * G] = lo
-    coef_host[8 * G:] = pdf._consts_rows(dz_m, "rk4")
-    re_hi, re_lo = pdf._split_rows_f64(plane_state(A0p.real, g))
-    im_hi, im_lo = pdf._split_rows_f64(plane_state(A0p.imag, g))
-    y0_host = np.concatenate([re_hi, re_lo, im_hi, im_lo], axis=0)
-
-    # device path: raw thin splits -> jit-packed planes
-    ga_al = pdf._stack_splits((gamma, alpha), pad)
-    sc_db = pdf._split_maybe_const(dbeta, pad)
-    a0r = pdf._stack_splits((A0.real, A0.imag), pad)
-    if gc and ac:
-        assert ga_al.shape == (4, 1)        # constants ship one row
-    if a0c:
-        assert a0r.shape == (4, 1, 4)
-    coef_dev, y0_dev = jax.jit(
-        pdf._pack_grouped_jnp, static_argnums=(4, 5)
-    )(jnp.asarray(ga_al), jnp.asarray(sc_db), jnp.asarray(a0r),
-      jnp.asarray(pdf._consts_rows(dz_m, "rk4")), g, Bp)
-    np.testing.assert_array_equal(np.asarray(coef_dev), coef_host)
-    np.testing.assert_array_equal(np.asarray(y0_dev), y0_host)
-
-
-@tpu_only
-def test_pallas_df32_gain_outputs_matches_full():
-    """``outputs='gain'`` (reduced wave-2 fetch) must agree with the full
-    result's P_max / |A_end|^2 / ok to two-float class (P_end is squared
-    on device from the same y_last planes the full path fetches)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import pallas_df32 as pdf
-
-    B = 12
-    rng = np.random.default_rng(7)
-    A0 = np.broadcast_to(np.sqrt([0.1, 0.1, 1e-6, 0]).astype(np.complex128),
-                         (B, 4)).copy()
-    gamma = np.full(B, 1.5)
-    alpha = np.full(B, 1.15e-2)
-    dbeta = rng.uniform(-1, 1, B)
-    kw = dict(dz_m=0.2, n_steps=20, save_every=10)
-    full = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta, **kw)
-    gp = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta,
-                                     outputs="gain", wave=2, **kw)
-    np.testing.assert_allclose(gp.P_max_wave, full.P_max[:, 2],
-                               rtol=1e-12, atol=0)
-    np.testing.assert_allclose(gp.P_end_wave, np.abs(full.A_end[:, 2]) ** 2,
-                               rtol=1e-12, atol=0)
-    np.testing.assert_array_equal(gp.ok, full.ok)
-
-
 def _np_adams_rotating(A0, gamma, alpha, dbeta, dz, n_steps, save_every,
                        correct):
     """Host f64 oracle of the SAME Adams scheme on the rotating-frame RHS
@@ -420,13 +295,12 @@ def _np_adams_rotating(A0, gamma, alpha, dbeta, dz, n_steps, save_every,
 def test_df32_multistep_parity_with_x64_oracle(method):
     """Adams df32 scan solver vs a host-f64 oracle of the SAME scheme:
     same-method parity far inside 1e-9 (the multistep analog of the RK4
-    parity test above).  The oracle runs on the host, so this is the lane
-    that validates the engine ON TPU (measured 1e-14 there, 2026-08-18).
+    parity test above).
 
-    CPU tolerance note: the XLA:CPU-jitted two-float ms program shows a
-    ~3e-8 artifact the TPU backend does not (eager CPU df32 steps are
-    clean at 1e-12, tests/test_multistep.py) -- the opt-in CPU lane runs
-    at a documented looser tolerance."""
+    Tolerance note: the XLA:CPU-jitted two-float ms program shows a ~3e-8
+    artifact (eager CPU df32 steps are clean at 1e-12,
+    tests/test_multistep.py) -- the opt-in CPU lane runs at a documented
+    looser tolerance."""
     B = 4
     rng = np.random.default_rng(11)
     A0 = np.broadcast_to(np.sqrt([0.1, 0.1, 1e-7, 0.0]).astype(np.complex128),
@@ -450,93 +324,8 @@ def test_df32_multistep_parity_with_x64_oracle(method):
             method == "abm4")
     A64[:, :2] *= np.exp(0.5j * dbeta[:, None] * dz * n_steps)
 
-    tol = 1e-9 if ON_TPU else 1e-7
+    tol = 1e-7
     rel_P = np.max(np.abs(r32.P_max - P64) / np.maximum(P64, 1e-30))
     rel_A = np.max(np.abs(r32.A_end - A64) / np.maximum(np.abs(A64), 1e-30))
     assert rel_P < tol, rel_P
     assert rel_A < tol, rel_A
-
-
-@tpu_only
-@pytest.mark.parametrize("method", ["ab4", "abm4"])
-def test_pallas_df32_multistep_matches_scan(method):
-    """The grouped pallas kernel's Adams path vs the scan df32 solver of
-    the same scheme (both two-float; 1e-12-class agreement like the RK4
-    kernel test -- not bitwise, the kernel bootstraps with its own fused
-    RK4 op order)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import pallas_df32 as pdf
-
-    B = 6
-    rng = np.random.default_rng(4)
-    A0 = np.broadcast_to(np.sqrt([0.1, 0.1, 1e-6, 0]).astype(np.complex128),
-                         (B, 4)).copy()
-    gamma = np.full(B, 1.5)
-    alpha = np.full(B, 1.15e-2)
-    dbeta = rng.uniform(-1, 1, B)
-    kw = dict(dz_m=0.2, n_steps=23, save_every=10)
-    r_pl = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta,
-                                       integrator=method, **kw)
-    r_sc = dfs.solve_batch_df32(A0, gamma, alpha, dbeta, method=method, **kw)
-    np.testing.assert_allclose(r_pl.P_max, r_sc.P_max, rtol=1e-12, atol=0)
-    np.testing.assert_allclose(r_pl.A_end, r_sc.A_end, rtol=1e-12, atol=1e-20)
-    np.testing.assert_array_equal(r_pl.ok, r_sc.ok)
-    # and both differ from rk4 (the dispatch is real, not a silent fallback)
-    r_rk = dfs.solve_batch_df32(A0, gamma, alpha, dbeta, **kw)
-    assert np.max(np.abs(r_rk.A_end - r_sc.A_end)) > 1e-9
-
-
-@tpu_only
-def test_pallas_df32_sharded_bit_identical():
-    """The shard_map-wrapped fused kernel on a device mesh must be
-    bit-identical to the unsharded kernel (each shard runs the same VMEM
-    program; the split is pure data parallelism)."""
-    from jax.sharding import Mesh
-
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import pallas_df32 as pdf
-
-    B = 600  # not a multiple of the 512-lane block: exercises padding
-    rng = np.random.default_rng(5)
-    A0 = np.sqrt(np.array([0.5, 0.5, 1e-7, 1e-7]))[None, :] * np.exp(
-        1j * rng.uniform(0, 2 * np.pi, (B, 4))
-    )
-    gamma = np.full(B, 0.0115)
-    alpha = np.full(B, 1.15e-4)
-    dbeta = np.linspace(-0.5, 0.5, B)
-    kw = dict(dz_m=0.2, n_steps=250, save_every=10)
-    r_plain = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta, **kw)
-    tpu_devs = [d for d in jax.devices() if d.platform == "tpu"]
-    mesh = Mesh(np.asarray(tpu_devs), ("batch",))
-    r_shard = pdf.solve_batch_df32_pallas(A0, gamma, alpha, dbeta, mesh=mesh, **kw)
-    np.testing.assert_array_equal(r_plain.P_max, r_shard.P_max)
-    np.testing.assert_array_equal(r_plain.A_end, r_shard.A_end)
-    np.testing.assert_array_equal(r_plain.ok, r_shard.ok)
-    assert r_plain.ok.all()
-
-
-@tpu_only
-def test_df32_sweep_sharded_engine_dispatch():
-    """precision='df32' + mesh must route to the shard_map pallas kernel on
-    TPU (round-1 verdict: it silently fell back to the slower scan) and agree
-    with the unsharded result bit-for-bit."""
-    from jax.sharding import Mesh
-
-    cfg = psa.custom_simulation_config(
-        z_max=100.0, dz=0.2, save_every=10, precision="df32"
-    )
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
-
-    B = 130
-    coeffs = RHSCoeffs(
-        gamma=np.full(B, 0.0115), alpha=np.full(B, 1.15e-4),
-        delta_beta=np.linspace(-0.4, 0.4, B),
-    )
-    A0 = np.broadcast_to(
-        np.sqrt([0.5, 0.5, 1e-7, 0.0]).astype(np.complex128), (B, 4)
-    ).copy()
-    plain = sw.solve_batch(cfg, coeffs, A0, engine="pallas")
-    tpu_devs = [d for d in jax.devices() if d.platform == "tpu"]
-    mesh = Mesh(np.asarray(tpu_devs), ("batch",))
-    sharded = sw.solve_batch(cfg, coeffs, A0, engine="pallas", mesh=mesh)
-    np.testing.assert_array_equal(sharded.P_max, plain.P_max)
-    np.testing.assert_array_equal(sharded.A_end, plain.A_end)
-    np.testing.assert_array_equal(sharded.ok, plain.ok)

@@ -1,38 +1,32 @@
 """Matched-tolerance (df32) vector-GNLSE engine: ops/df32_vgnlse.py.
 
 Same lane split as every df32 engine (CLAUDE.md constraint 4): eager
-component checks on CPU, jitted solvers on the TPU lane
-(PSA_TEST_TPU=1 / PSA_DF32_FULL=1)."""
+component checks on CPU, jitted solvers on the opt-in lane
+(PSA_DF32_FULL=1)."""
 
 import os
 
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import vgnlse as vg
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import df32_vgnlse as dv
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.twofloat import (
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.models import vgnlse as vg
+from psa_simulation_ode_rk_mvp_dispersion.ops import df32_vgnlse as dv
+from psa_simulation_ode_rk_mvp_dispersion.ops.twofloat import (
     ctf_from_c128,
     ctf_to_c128,
     tf_from_f64,
 )
 
-_RUN_FULL = os.environ.get("PSA_DF32_FULL", "0") == "1" or os.environ.get(
-    "PSA_TEST_TPU", "0"
-) == "1"
+_RUN_FULL = os.environ.get("PSA_DF32_FULL", "0") == "1"
 
 needs_full = pytest.mark.skipif(
     not _RUN_FULL,
     reason="jitted df32 solver: XLA:CPU two-float compiles are pathological "
-    "(CLAUDE.md); run with PSA_DF32_FULL=1 or on TPU (PSA_TEST_TPU=1)",
+    "(opt in: PSA_DF32_FULL=1)",
 )
 
-cpu_lane = pytest.mark.skipif(
-    os.environ.get("PSA_TEST_TPU", "0") == "1",
-    reason="eager two-float component checks are the CPU lane",
-)
 
 T0 = 1e-12
 BETA2 = -2.0e-26
@@ -69,7 +63,6 @@ def _cfg(n_steps=7, save_every=3, zmax=0.07, precision="df32", **kw):
         precision=precision, **kw)
 
 
-@cpu_lane
 def test_xpm_rotation_matches_f64():
     rng = np.random.default_rng(0)
     y = rng.normal(size=(2, 2, 16)) + 1j * rng.normal(size=(2, 2, 16))
@@ -82,7 +75,6 @@ def test_xpm_rotation_matches_f64():
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-13
 
 
-@cpu_lane
 @pytest.mark.parametrize("coupling", ["cnlse", "manakov", "isotropic"])
 def test_eager_vssfm_matches_x64_scan(coupling):
     """Eager df32 vector reduce solve vs the x64 scan engine: identical
@@ -103,13 +95,12 @@ def test_eager_vssfm_matches_x64_scan(coupling):
     pk_r, A_r, ok_r = vg.solve_vgnlse_batch(_cfg(precision="x64"), co64, A0)
     A_df = ctf_to_c128(y)
     assert np.abs(A_df - A_r).max() / np.abs(A_r).max() < 1e-12
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.twofloat import (
+    from psa_simulation_ode_rk_mvp_dispersion.ops.twofloat import (
         tf_to_f64,
     )
     np.testing.assert_allclose(tf_to_f64(pk), pk_r, rtol=1e-12)
 
 
-@cpu_lane
 def test_df32_dispatch_validation():
     """df32 coeffs keep HOST f64 leaves for every coupling (round 3:
     isotropic included -- the coherent c-term runs the two-float RK4);
@@ -138,7 +129,6 @@ def test_df32_dispatch_validation():
             np.zeros((2, 48)), dz_m=0.01, n_steps=3, save_every=1)
 
 
-@cpu_lane
 def test_eager_vssfm_generalized_nl_matches_x64_scan():
     """Eager df32 vector reduce solve with the GENERALIZED operator (Raman
     + self-steepening, isotropic-Raman approximation) vs the x64 scan
@@ -150,7 +140,7 @@ def test_eager_vssfm_generalized_nl_matches_x64_scan():
                              precision="df32")
     _g, co, A0 = _setup(B=3, T=T, coupling="isotropic", spec=True)
     cfg = _cfg()
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.df32_gnlse import (
+    from psa_simulation_ode_rk_mvp_dispersion.ops.df32_gnlse import (
         make_df32_nl_planes,
     )
 
@@ -261,7 +251,7 @@ def test_jitted_df32_vgnlse_trajectory_and_resume():
 def test_jitted_df32_vgnlse_sharded_matches_unsharded():
     import jax
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import (
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import (
         default_mesh,
     )
 

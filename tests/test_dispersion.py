@@ -8,9 +8,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import dispersion as dm
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import frequency_plan as fp
-from psa_simulation_ode_rk_mvp_dispersion_tpu.utils import units
+from psa_simulation_ode_rk_mvp_dispersion.ops import dispersion as dm
+from psa_simulation_ode_rk_mvp_dispersion.ops import frequency_plan as fp
+from psa_simulation_ode_rk_mvp_dispersion.utils import units
 
 GOLDEN = json.loads((Path(__file__).parent / "golden" / "golden_scalars.json").read_text())
 

@@ -11,13 +11,13 @@ widen the spread.
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models.fwm4 import (
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models.fwm4 import (
     make_initial_amplitudes,
 )
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import fluctuations as fl
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.sweep import solve_batch
+from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
+from psa_simulation_ode_rk_mvp_dispersion.parallel import fluctuations as fl
+from psa_simulation_ode_rk_mvp_dispersion.parallel.sweep import solve_batch
 
 GAMMA, P_IN = 5e-3, [0.5, 0.5, 1e-6, 0.0]
 DB_OPT = -5e-3  # kappa = 0 for gamma (P1+P2) = 5e-3
@@ -101,8 +101,8 @@ def test_df32_request_routes_to_compensated_engine(monkeypatch):
     stubbing solve_batch and asserting the fused solver is never built."""
     import dataclasses as dc
 
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import fluctuations
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import fluctuations
 
     calls = []
 

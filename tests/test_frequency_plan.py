@@ -7,8 +7,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import frequency_plan as fp
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops import frequency_plan as fp
 
 GOLDEN = json.loads((Path(__file__).parent / "golden" / "golden_scalars.json").read_text())
 

@@ -12,10 +12,10 @@ unrelated formulations must agree on every significant line.
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave as nw
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.models import nwave as nw
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 T0 = 1e-12
 BETA2 = -2.0e-26
@@ -395,7 +395,7 @@ def test_rk45_actually_adapts():
     fewer accepted steps than a soliton at the same tolerance."""
     import jax.numpy as jnp
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.utils.packing import ri_pack_host
+    from psa_simulation_ode_rk_mvp_dispersion.utils.packing import ri_pack_host
 
     grid = _grid()
     gam = 2e-3
@@ -523,7 +523,7 @@ def test_supercontinuum_soliton_fission():
     (Raman transfer only; no linear loss) and finite fields throughout.
     The full-size config reproduces the octave-spanning 507-1285 nm
     spectrum of Dudley et al. RMP 2006 Fig. 3 (run 2026-08-16, 122 s CPU)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu import experiments as ex
+    from psa_simulation_ode_rk_mvp_dispersion import experiments as ex
 
     z, A = ex.supercontinuum(n_samples=1024, window_ps=3.0, length_m=0.03,
                              rtol=1e-5, n_saved=20, show=False, verbose=False)
@@ -564,11 +564,11 @@ def test_df32_dispatches_to_two_float_engine():
     """Since round 3 the GNLSE family HAS a two-float engine
     (ops/df32_gnlse.py): a df32 request dispatches instead of raising
     (combination guards live in tests/test_df32_gnlse.py; the jitted
-    solver itself is TPU-lane -- XLA:CPU two-float compiles are
+    solver itself is opt-in -- XLA:CPU two-float compiles are
     pathological, CLAUDE.md constraint 4)."""
     import dataclasses as dc
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.gnlse import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.gnlse import (
         TimeGrid, make_gnlse_coeffs)
 
     grid = TimeGrid(n_samples=64, t_window_s=10e-12)

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import integrators as integ
+from psa_simulation_ode_rk_mvp_dispersion.ops import integrators as integ
 
 
 def _rhs_exp(z, y, params):

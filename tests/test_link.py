@@ -27,9 +27,9 @@ limit 8; the linear sigma_t^2 term dilutes it).
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 OM0 = 1.2e15
 T0 = 1e-12

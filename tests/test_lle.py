@@ -16,8 +16,8 @@ steady states, the universal MI threshold ``rho = 1`` with growth rate
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import lle
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import lle
 
 GRID = lle.TimeGrid(n_samples=256, t_window_s=20.0)
 
@@ -184,7 +184,7 @@ def test_batch_reduce_matches_trajectories():
 
 
 def test_sharded_matches_unsharded():
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import (
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import (
         default_mesh,
     )
 
@@ -348,10 +348,10 @@ def test_rk4ip45_adaptive_matches_truth_with_fewer_steps():
            / np.max(np.abs(psi_ref[-1])))
     assert err < 1e-4, err
     # step-count comparison through the batch reduce counters
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.lle import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.lle import (
         _lle_adaptive_solver, _lle_adaptive_family,
     )
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.utils.packing import (
+    from psa_simulation_ode_rk_mvp_dispersion.utils.packing import (
         ri_pack_host,
     )
     import jax.numpy as jnp
@@ -382,7 +382,7 @@ def test_rk4ip45_adaptive_matches_truth_with_fewer_steps():
 
 
 def test_rk45_sharded_matches_unsharded():
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import (
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import (
         default_mesh,
     )
 

@@ -1,8 +1,8 @@
 """Adams multistep integrators (ab4 / abm4): order, save-grid contract,
 NaN-freeze semantics, and the comb engine wiring.
 
-The multistep path exists for TPU throughput (1-2 RHS evals/step vs RK4's
-4 -- the RHS evaluation is the MXU/VMEM cost); these tests pin the numerics
+The multistep path exists for throughput (1-2 RHS evals/step vs RK4's
+4 -- the RHS evaluation is the cost); these tests pin the numerics
 on CPU x64: 4th-order convergence, trajectory agreement with RK4 far below
 the x32 rounding floor, and the exact reference save-decimation contract
 (row 0 + every save_every-th step; trailing partial steps integrated but
@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.integrators import (
+from psa_simulation_ode_rk_mvp_dispersion.ops.integrators import (
     integrate_fixed_grid,
     integrate_reduce,
 )
@@ -188,8 +188,8 @@ def test_bad_method_raises():
 # ---------------------------------------------------------------------------
 
 def _comb_setup(B=3):
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave as nw
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.models import nwave as nw
 
     omega_c = 2.0 * np.pi * 193.1e12
     grid = nw.CombGrid.centered(omega_c, 2.0 * np.pi * 50e9, 16)
@@ -207,7 +207,7 @@ def _comb_setup(B=3):
 
 @pytest.mark.parametrize("integrator", ["ab4", "abm4"])
 def test_comb_batch_multistep_matches_rk4(integrator):
-    import psa_tpu as psa
+    import psa
 
     nw, A0, coeffs = _comb_setup()
     kw = dict(z_max=200.0, dz=0.5, save_every=25, precision="x64")
@@ -221,7 +221,7 @@ def test_comb_batch_multistep_matches_rk4(integrator):
 
 
 def test_comb_trajectories_multistep():
-    import psa_tpu as psa
+    import psa
 
     nw, A0, coeffs = _comb_setup()
     kw = dict(z_max=100.0, dz=0.5, save_every=20, precision="x64")
@@ -235,10 +235,10 @@ def test_comb_trajectories_multistep():
 
 
 def test_run_comb_simulation_multistep():
-    import psa_tpu as psa
+    import psa
 
     nw, A0, coeffs = _comb_setup(B=1)
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.nwave import NWaveCoeffs
+    from psa_simulation_ode_rk_mvp_dispersion.models.nwave import NWaveCoeffs
     c1 = NWaveCoeffs(gamma=10e-3, alpha=5e-5,
                      beta_lin=np.asarray(coeffs.beta_lin[0]))
     kw = dict(z_max=100.0, dz=0.5, save_every=20, precision="x64")
@@ -251,9 +251,9 @@ def test_run_comb_simulation_multistep():
 
 def test_unsupported_families_raise():
     """Families without a multistep path refuse loudly (no silent rk4)."""
-    import psa_tpu as psa
+    import psa
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.gnlse import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.gnlse import (
         run_gnlse_simulation, make_gnlse_coeffs, TimeGrid,
     )
     tg = TimeGrid(n_samples=64, t_window_s=64e-13)
@@ -266,7 +266,7 @@ def test_unsupported_families_raise():
 
 
 def test_df32_and_pallas_engines_reject_multistep():
-    import psa_tpu as psa
+    import psa
 
     nw, A0, coeffs = _comb_setup()
     cfg = psa.custom_simulation_config(
@@ -276,30 +276,31 @@ def test_df32_and_pallas_engines_reject_multistep():
 
 
 # ---------------------------------------------------------------------------
-# Fused pallas kernel: interpret-mode parity with the scan engine
+# Adams comb solves: the fft and dft couplings agree at x32
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("integrator", ["ab4", "abm4"])
 @pytest.mark.parametrize("save_every", [20, 3, 1])
-def test_pallas_comb_multistep_interpret_parity(integrator, save_every):
-    """Kernel Adams driver == scan Adams engine (x32, interpret mode on CPU)
-    across bootstrap/save alignments, incl. boundaries inside the 3-step
-    RK4 bootstrap."""
-    import psa_tpu as psa
+def test_comb_multistep_couplings_agree(integrator, save_every):
+    """Adams comb solves with the fft and dft couplings agree (x32) across
+    bootstrap/save alignments, incl. boundaries inside the 3-step RK4
+    bootstrap."""
+    import psa
 
     nw, A0, coeffs = _comb_setup(B=5)
     kw = dict(z_max=30.0, dz=0.5, save_every=save_every, precision="x32")
     cfg = psa.custom_simulation_config(integrator=integrator, **kw)
     P1, A1, ok1 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="dft")
-    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, engine="pallas")
+    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="fft")
     assert ok1.all() and ok2.all()
     np.testing.assert_allclose(A2, A1, rtol=2e-5, atol=1e-7)
     np.testing.assert_allclose(P2, P1, rtol=2e-5, atol=1e-7)
 
 
-def test_pallas_comb_multistep_trailing_remainder():
-    """Trailing partial steps: integrated but unsaved (kernel == scan)."""
-    import psa_tpu as psa
+def test_comb_multistep_trailing_remainder():
+    """Trailing partial steps: integrated but unsaved -- A_final is the last
+    saved row of the trajectory solve."""
+    import psa
 
     nw, A0, coeffs = _comb_setup(B=3)
     # 47 steps, save_every=10 -> 7 trailing unsaved steps
@@ -307,14 +308,17 @@ def test_pallas_comb_multistep_trailing_remainder():
               integrator="abm4")
     cfg = psa.custom_simulation_config(**kw)
     P1, A1, ok1 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="dft")
-    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, engine="pallas")
-    np.testing.assert_allclose(A2, A1, rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(P2, P1, rtol=2e-5, atol=1e-7)
+    _z, At, okt = nw.solve_comb_batch_trajectories(cfg, coeffs, A0,
+                                                   coupling="dft")
+    assert ok1.all() and okt.all()
+    np.testing.assert_allclose(A1, At[:, -1], rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(P1, np.max(np.abs(At) ** 2, axis=1),
+                               rtol=2e-5, atol=1e-7)
 
 
-def test_pallas_comb_multistep_nan_freeze():
-    """A blown-up lane freezes + masks identically to the scan engine."""
-    import psa_tpu as psa
+def test_comb_multistep_nan_freeze():
+    """A blown-up lane freezes + masks identically under both couplings."""
+    import psa
 
     nw, A0, coeffs = _comb_setup(B=4)
     gamma = np.asarray(coeffs.gamma).copy()
@@ -324,7 +328,7 @@ def test_pallas_comb_multistep_nan_freeze():
     cfg = psa.custom_simulation_config(
         z_max=30.0, dz=0.5, save_every=10, precision="x32", integrator="ab4")
     P1, A1, ok1 = nw.solve_comb_batch(cfg, bad, A0, coupling="dft")
-    P2, A2, ok2 = nw.solve_comb_batch(cfg, bad, A0, engine="pallas")
+    P2, A2, ok2 = nw.solve_comb_batch(cfg, bad, A0, coupling="fft")
     np.testing.assert_array_equal(ok2, ok1)
     assert not ok1[2] and ok1[[0, 1, 3]].all()
     np.testing.assert_allclose(A2[ok1], A1[ok1], rtol=2e-5, atol=1e-7)
@@ -335,7 +339,7 @@ def test_pallas_comb_multistep_nan_freeze():
 # ---------------------------------------------------------------------------
 
 def _fwm_kwargs():
-    import psa_tpu as psa
+    import psa
 
     omega = np.asarray(psa.plan_from_wavelengths(1550e-9, 1560e-9, 1555e-9))
     return dict(
@@ -349,8 +353,8 @@ def _fwm_kwargs():
 def test_run_single_simulation_multistep_vs_oracle(integrator):
     """Runner Adams trajectory == the independent numpy oracle of the same
     scheme on the 4-wave lab-frame RHS (save contract included)."""
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import (
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import (
         RHSCoeffs, rhs_yaman,
     )
 
@@ -384,9 +388,9 @@ def test_run_single_simulation_multistep_vs_oracle(integrator):
 def test_solve_batch_multistep_matches_trajectories(integrator):
     """Reduce-mode Adams summaries == trajectory-mode Adams rows, and both
     frames agree (powers are frame-invariant)."""
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
 
     cfg = psa.custom_simulation_config(
         z_max=50.0, dz=0.1, save_every=10, integrator=integrator)
@@ -415,8 +419,8 @@ def test_solve_batch_multistep_matches_trajectories(integrator):
 def test_gain_spectrum_multistep_close_to_rk4():
     """Public sweep with integrator='ab4': same gains to ~truncation (the
     Adams trajectory is a different 4th-order approximation, not rk4)."""
-    import psa_tpu as psa
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
+    import psa
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
 
     lam3 = np.linspace(1548e-9, 1562e-9, 9)
     disp = psa.dispersion_params_from_D_S(
@@ -440,9 +444,9 @@ def test_gain_spectrum_multistep_close_to_rk4():
 def test_df32_eager_ab4_steps_match_f64_ab4():
     """Eager (scan-free) df32 Adams steps vs an f64 NumPy implementation of
     the same scheme -- the CPU-runnable validation of the df32 multistep
-    path (the jitted df32 solver is TPU/opt-in, CLAUDE.md #4)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import df32_solver as dfs
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import twofloat as tfm
+    path (the jitted df32 solver is opt-in, CLAUDE.md #4)."""
+    from psa_simulation_ode_rk_mvp_dispersion.ops import df32_solver as dfs
+    from psa_simulation_ode_rk_mvp_dispersion.ops import twofloat as tfm
 
     gamma, alpha, dbeta, dz = 1.5, 0.02, 0.8, 0.05
     A0 = np.sqrt(np.array([0.3, 0.25, 1e-4, 0.0])).astype(np.complex128)

@@ -10,9 +10,9 @@ reaches NF = 0 dB.  Monte-Carlo tolerance at n_samples=8192 is ~0.1 dB.
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import noise as nz
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.parallel import noise as nz
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 OMEGA = np.asarray(psa.plan_from_wavelengths(1550e-9, 1552e-9, 1551.0e-9))
 GAMMA, P_PUMP = 5e-3, 0.5
@@ -65,11 +65,11 @@ def test_psa_joint_measurement_quantum_limit():
     """Signal + idler seeded at the max-gain phase, joint detection: the
     phase-sensitive amplifier is noiseless (NF -> 0 dB)."""
     # max-gain total phase found by a mean-field phase scan (cheap):
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.fwm4 import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.fwm4 import (
         make_initial_amplitudes,
     )
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.sweep import solve_batch
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.sweep import solve_batch
 
     cfg = _cfg()
     phases = np.linspace(0.0, 2.0 * np.pi, 33)

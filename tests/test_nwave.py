@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave as nw
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.dispersion import DispersionParams
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import nwave as nw
+from psa_simulation_ode_rk_mvp_dispersion.ops.dispersion import DispersionParams
 
 
 def _rand_state(n, b=None, seed=0):
@@ -179,7 +179,7 @@ def test_comb_vmap_batch():
 
     def solve(y0, g):
         coeffs = nw.NWaveCoeffs(gamma=g, alpha=jnp.asarray(0.0), beta_lin=beta)
-        from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.integrators import (
+        from psa_simulation_ode_rk_mvp_dispersion.ops.integrators import (
             integrate_fixed_grid,
         )
 
@@ -209,7 +209,7 @@ def test_solve_comb_batch_matches_singles_and_shards():
     """Batched comb solves match per-comb runs; sharding over the 8-device
     mesh reproduces the unsharded result."""
     import jax
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import default_mesh
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import default_mesh
 
     n = 16
     grid = nw.CombGrid.centered(1.2e15, 2 * np.pi * 100e9, n)
@@ -267,7 +267,7 @@ def test_solve_comb_batch_rk45():
 
 @pytest.mark.parametrize("n", [1, 2, 5, 16, 33, 64])
 def test_dft_polarization_matches_fft(n):
-    """The dense DFT-matmul coupling (MXU path) equals the FFT path."""
+    """The dense DFT-matmul coupling equals the FFT path."""
     a = jnp.asarray(_rand_state(n, seed=3))
     T_fft = np.asarray(nw.fwm_polarization(a))
     T_dft = np.asarray(nw.fwm_polarization_dft(a))
@@ -308,9 +308,9 @@ def test_solve_comb_batch_dft_coupling_end_to_end():
     np.testing.assert_allclose(P2, P1, rtol=1e-8, atol=1e-10)
 
 
-def test_solve_comb_batch_pallas_engine_interpret_parity():
-    """engine='pallas' (fused VMEM kernel; interpret mode off-TPU) matches
-    the scan engine with dft coupling at x32."""
+def test_solve_comb_batch_couplings_agree_x32():
+    """At x32 the dft and einsum couplings (both pinned to HIGHEST
+    contraction precision) track the fft coupling to f32 class."""
     n, B = 8, 4
     rng = np.random.default_rng(2)
     A0 = rng.normal(size=(B, n)) * 0.3 + 1j * rng.normal(size=(B, n)) * 0.3
@@ -320,14 +320,15 @@ def test_solve_comb_batch_pallas_engine_interpret_parity():
     )
     cfg = psa.custom_simulation_config(z_max=1.0, dz=0.01, save_every=10,
                                        precision="x32")
-    P1, A1, ok1 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="dft")
-    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, engine="pallas")
-    assert ok1.all() and ok2.all()
-    np.testing.assert_allclose(A2, A1, rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(P2, P1, rtol=2e-5, atol=1e-7)
+    P1, A1, ok1 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="fft")
+    for coupling in ("dft", "einsum"):
+        P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, coupling=coupling)
+        assert ok1.all() and ok2.all()
+        np.testing.assert_allclose(A2, A1, rtol=2e-5, atol=1e-7)
+        np.testing.assert_allclose(P2, P1, rtol=2e-5, atol=1e-7)
 
 
-def test_solve_comb_batch_pallas_engine_validation():
+def test_solve_comb_batch_validation():
     n, B = 8, 4
     A0 = np.ones((B, n), dtype=np.complex128) * 0.1
     coeffs = nw.NWaveCoeffs(
@@ -337,23 +338,21 @@ def test_solve_comb_batch_pallas_engine_validation():
     cfg_ip = psa.custom_simulation_config(
         z_max=1.0, dz=0.01, precision="x32", integrator="rk4ip"
     )
-    # rk45 + pallas dispatches the fused DP45 comb kernel since round 4;
-    # the split-step integrators still have no comb path at all
+    # the split-step integrators have no comb path at all
     with pytest.raises(ValueError):
-        nw.solve_comb_batch(cfg_ip, coeffs, A0, engine="pallas")
+        nw.solve_comb_batch(cfg_ip, coeffs, A0)
     cfg_x64 = psa.custom_simulation_config(z_max=1.0, dz=0.01)
-    with pytest.raises(ValueError, match="x32"):
+    with pytest.raises(ValueError, match="coupling"):
+        nw.solve_comb_batch(cfg_x64, coeffs, A0, coupling="bogus")
+    # the comb family has one engine: no engine= option is accepted
+    with pytest.raises(TypeError):
         nw.solve_comb_batch(cfg_x64, coeffs, A0, engine="pallas")
-    with pytest.raises(ValueError, match="engine"):
-        nw.solve_comb_batch(cfg_x64, coeffs, A0, engine="bogus")
 
 
 def test_solve_comb_batch_engines_agree_on_partial_tail():
-    """Round-2 review fix: the scan engine returned the state AFTER trailing
-    partial steps while the pallas kernel returned the last saved state.
-    Both now follow the framework-wide saved-grid convention (A_final at the
-    last saved grid point), so they agree when save_every does not divide
-    n_steps."""
+    """A_final sits at the last saved grid point (the framework-wide
+    saved-grid convention) for every coupling when save_every does not
+    divide n_steps."""
     n, B = 8, 3
     rng = np.random.default_rng(5)
     A0 = rng.normal(size=(B, n)) * 0.3 + 1j * rng.normal(size=(B, n)) * 0.3
@@ -365,7 +364,7 @@ def test_solve_comb_batch_engines_agree_on_partial_tail():
     cfg = psa.custom_simulation_config(z_max=1.05, dz=0.01, save_every=10,
                                        precision="x32")
     P1, A1, ok1 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="dft")
-    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, engine="pallas")
+    P2, A2, ok2 = nw.solve_comb_batch(cfg, coeffs, A0, coupling="fft")
     assert ok1.all() and ok2.all()
     np.testing.assert_allclose(A2, A1, rtol=2e-5, atol=1e-7)
     # and the scan A_final equals the last SAVED row of a trajectory solve
@@ -445,55 +444,11 @@ def co_row(co, i):
                           beta_lin=jnp.asarray(b))
 
 
-def test_pallas_comb_x3_compensated_dot_parity():
-    """mxu_precision='x3' (3-pass compensated hi/lo-bf16 split) tracks the
-    'highest' (6-pass) kernel to ~1e-5 relative in interpret mode, for all
-    three matmul variants."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.pallas_comb import (
-        solve_comb_batch_pallas,
-    )
-
-    n, B = 8, 4
-    rng = np.random.default_rng(5)
-    A0 = rng.normal(size=(B, n)) * 0.3 + 1j * rng.normal(size=(B, n)) * 0.3
-    kw = dict(
-        gamma=np.linspace(0.5, 1.5, B), alpha=np.full(B, 0.02),
-        beta_lin=np.broadcast_to(np.linspace(-0.3, 0.3, n), (B, n)),
-        dz_m=0.01, n_steps=100, save_every=10, interpret=True,
-    )
-    for variant in ("fused", "block", "karatsuba"):
-        P6, A6, ok6 = solve_comb_batch_pallas(
-            A0, variant=variant, mxu_precision="highest", **kw)
-        P3, A3, ok3 = solve_comb_batch_pallas(
-            A0, variant=variant, mxu_precision="x3", **kw)
-        assert ok6.all() and ok3.all()
-        np.testing.assert_allclose(A3, A6, rtol=0,
-                                   atol=5e-5 * np.max(np.abs(A6)))
-        np.testing.assert_allclose(P3, P6, rtol=0,
-                                   atol=5e-5 * np.max(P6))
-    with pytest.raises(ValueError, match="mxu_precision"):
-        solve_comb_batch_pallas(A0, mxu_precision="x9", **kw)
-
-    # models-layer pass-through: solve_comb_batch(engine='pallas',
-    # mxu_precision='x3') reaches the same kernel
-    cfg = psa.custom_simulation_config(z_max=1.0, dz=0.01, save_every=10,
-                                       precision="x32")
-    co = nw.NWaveCoeffs(gamma=kw["gamma"], alpha=kw["alpha"],
-                        beta_lin=kw["beta_lin"])
-    _, A_m, ok_m = nw.solve_comb_batch(cfg, co, A0, engine="pallas",
-                                       mxu_precision="x3")
-    P3, A3, ok3 = solve_comb_batch_pallas(A0, mxu_precision="x3", **kw)
-    np.testing.assert_array_equal(A_m, A3)
-    assert ok_m.all()
-
-
-def test_comb_rk45_pallas_kernel_matches_scan_interpret():
-    """engine='pallas' + integrator='rk45' runs the fused DP45 comb kernel
-    (round 4): interpret-mode results sit in the scan engine's accuracy
-    class at the same tolerance; sharded bit-identical; failures masked."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.pallas_comb_adaptive import (
-        solve_comb_batch_rk45_pallas)
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+def test_comb_rk45_scan_sharded_and_failure_masking():
+    """integrator='rk45' comb solves: sharded over the 8-device CPU mesh
+    equal the unsharded batch, and a runaway-gain lane is masked, not
+    raised, with the healthy lanes unaffected."""
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
     omega_c = 2 * np.pi * 193.1e12
     N, B = 16, 16
@@ -507,40 +462,19 @@ def test_comb_rk45_pallas_kernel_matches_scan_interpret():
     beta = np.broadcast_to(np.asarray(co1.beta_lin, float), (B, N))
     coeffs = nw.NWaveCoeffs(gamma=gammas, alpha=np.full(B, 5e-5),
                             beta_lin=beta)
-    n_steps, save_every, dz = 105, 20, 5.0
     cfg32 = psa.custom_simulation_config(
-        z_max=n_steps * dz, dz=dz, save_every=save_every, precision="x32",
+        z_max=300.0, dz=5.0, save_every=20, precision="x32",
         integrator="rk45", rtol=1e-6, atol=1e-12)
-    pk_k, Ae_k, ok_k = nw.solve_comb_batch(cfg32, coeffs, A0,
-                                           engine="pallas")
-    pk_s, Ae_s, ok_s = nw.solve_comb_batch(cfg32, coeffs, A0, engine="scan")
-    assert ok_k.all() and ok_s.all()
-    sig = np.abs(Ae_s) ** 2 > 1e-9
-    P_k, P_s = np.abs(Ae_k) ** 2, np.abs(Ae_s) ** 2
-    # the kernel's x3 dots perturb the error estimates, so the two engines
-    # take DIFFERENT accepted-step sequences -- each is within the
-    # controller tolerance of truth, so they differ at the integrated
-    # tolerance class (~1e-2 in power under parametric gain), not 1e-6
-    assert np.max(np.abs(P_k[sig] / P_s[sig] - 1)) < 2e-2
-    np.testing.assert_allclose(pk_k, pk_s, rtol=2e-2, atol=1e-10)
+    pk1, A1, ok1 = nw.solve_comb_batch(cfg32, coeffs, A0)
+    pk2, A2, ok2 = nw.solve_comb_batch(cfg32, coeffs, A0,
+                                       mesh=pm.default_mesh())
+    assert ok1.all() and ok2.all()
+    np.testing.assert_allclose(pk2, pk1, rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(A2, A1, rtol=1e-4, atol=1e-7)
 
-    # sharded kernel is bit-identical to unsharded (per-shard launches)
-    r1 = solve_comb_batch_rk45_pallas(
-        A0, gammas, np.full(B, 5e-5), beta, dz_m=dz, n_steps=60,
-        save_every=20, rtol=1e-6, atol=1e-12, interpret=True)
-    r2 = solve_comb_batch_rk45_pallas(
-        A0, gammas, np.full(B, 5e-5), beta, dz_m=dz, n_steps=60,
-        save_every=20, rtol=1e-6, atol=1e-12, interpret=True,
-        mesh=pm.default_mesh())
-    np.testing.assert_array_equal(r1.P_max, r2.P_max)
-    np.testing.assert_array_equal(r1.A_end, r2.A_end)
-    np.testing.assert_array_equal(r1.n_accepted, r2.n_accepted)
-
-    # runaway-gain lane masked, not raised; healthy lanes unaffected
     al = np.full(B, 5e-5)
     al[5] = -2.0
-    rb = solve_comb_batch_rk45_pallas(
-        A0, gammas, al, beta, dz_m=dz, n_steps=60, save_every=20,
-        rtol=1e-6, atol=1e-12, interpret=True)
-    assert not rb.ok[5]
-    assert rb.ok[np.arange(B) != 5].all()
+    bad = nw.NWaveCoeffs(gamma=gammas, alpha=al, beta_lin=beta)
+    _pk, _A, okb = nw.solve_comb_batch(cfg32, bad, A0)
+    assert not okb[5]
+    assert okb[np.arange(B) != 5].all()

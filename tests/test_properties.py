@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.constants import c as C0
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import dispersion as dsp
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import frequency_plan as fp
-from psa_simulation_ode_rk_mvp_dispersion_tpu.utils.packing import (
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.constants import c as C0
+from psa_simulation_ode_rk_mvp_dispersion.ops import dispersion as dsp
+from psa_simulation_ode_rk_mvp_dispersion.ops import frequency_plan as fp
+from psa_simulation_ode_rk_mvp_dispersion.utils.packing import (
     ri_pack_host,
     ri_unpack_host,
 )
@@ -131,7 +131,7 @@ def test_ri_packing_roundtrip(re, im):
 def test_initial_amplitudes_power_phase(p, ph):
     """A = sqrt(P) e^{i phi}: |A|^2 == P and arg(A) == phi (mod 2pi) for
     every nonzero component (reference simulation.py:103-123)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.fwm4 import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.fwm4 import (
         make_initial_amplitudes,
     )
 
@@ -146,7 +146,7 @@ def test_initial_amplitudes_power_phase(p, ph):
 @settings(max_examples=50, deadline=None)
 @given(scale_unit=st.sampled_from(["m", "km"]), z=st.floats(1e-3, 1e4))
 def test_length_unit_boundary(scale_unit, z):
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.utils.units import (
+    from psa_simulation_ode_rk_mvp_dispersion.utils.units import (
         length_scale_to_m,
     )
 

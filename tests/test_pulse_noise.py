@@ -22,9 +22,9 @@ period, -12.3 dB at three.
 
 import numpy as np
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 OM0 = 1.2e15
 T0 = 1e-12
@@ -377,7 +377,7 @@ def test_comb_photon_statistics_pia_oracle():
     the cross-family consistency oracle."""
     import pytest
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave as nw
+    from psa_simulation_ode_rk_mvp_dispersion.models import nwave as nw
 
     grid = nw.CombGrid.centered(2 * np.pi * 193.1e12, 2 * np.pi * 100e9, 4)
     cfg = psa.custom_simulation_config(z_max=200.0, dz=0.05, save_every=100)
@@ -625,7 +625,7 @@ def test_comb_pair_squeezing_cross_family():
     -6.43 dB at 8k samples)."""
     import pytest
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave as nw
+    from psa_simulation_ode_rk_mvp_dispersion.models import nwave as nw
 
     grid = nw.CombGrid.centered(2 * np.pi * 193.1e12, 2 * np.pi * 100e9, 4)
     cfg = psa.custom_simulation_config(z_max=150.0, dz=0.05, save_every=50)

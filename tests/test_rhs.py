@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops import integrators as integ
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import (
+from psa_simulation_ode_rk_mvp_dispersion.ops import integrators as integ
+from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import (
     RHSCoeffs,
     kerr_factors,
     rhs_yaman,
@@ -156,7 +156,7 @@ def test_batched_rhs_broadcasts():
 def test_polarization_averaged_kerr_variant():
     """make_rhs_yaman((2/3, 4/3)) implements the Manakov-style Kerr variant
     the reference's test suite encodes (tests.py:256-269 intent)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import make_rhs_yaman
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import make_rhs_yaman
 
     rng = np.random.default_rng(5)
     a = rng.normal(size=4) + 1j * rng.normal(size=4)

@@ -19,10 +19,10 @@ import math
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as g
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import vgnlse as vg
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.dispersion import DispersionParams
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as g
+from psa_simulation_ode_rk_mvp_dispersion.models import vgnlse as vg
+from psa_simulation_ode_rk_mvp_dispersion.ops.dispersion import DispersionParams
 
 W0 = 2 * np.pi * 3e8 / 1550e-9
 T0 = 50e-15
@@ -110,7 +110,7 @@ def test_rk4ip_reduce_matches_trajectories():
 def test_rk4ip_sharded_matches_unsharded():
     """Batch-axis shard_map on the CPU mesh reproduces the unsharded rk4ip
     solve (trajectory + reduce modes)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import default_mesh
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import default_mesh
 
     grid, co, A0 = _soliton_setup(n_samples=128)
     B = 8
@@ -182,9 +182,9 @@ def test_rk4ip_nan_freeze_contract():
 
 def test_rk4ip_rejected_by_ode_families():
     """The ODE families refuse rk4ip loudly (no silent rk4/rk45)."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import nwave
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
+    from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
+    from psa_simulation_ode_rk_mvp_dispersion.models import nwave
 
     cfg = psa.custom_simulation_config(z_max=0.5, dz=1e-3, integrator="rk4ip")
     omega = np.asarray(psa.plan_from_wavelengths(1550e-9, 1560e-9, 1555e-9))
@@ -247,7 +247,7 @@ def test_rk4ip_vector_reduce_matches_trajectories():
 def _adaptive_counters(method, rtol, A0, co, n_samples):
     """Accepted/rejected step counts from the reduce-mode adaptive solver."""
     import jax.numpy as jnp
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.utils.packing import (
+    from psa_simulation_ode_rk_mvp_dispersion.utils.packing import (
         ri_pack_host,
     )
 
@@ -318,7 +318,7 @@ def test_rk4ip45_reduce_matches_trajectories():
 def test_rk4ip45_sharded_matches_unsharded():
     """Per-lane controllers are independent, so the shard_map program is
     bit-identical per lane to the unsharded batch."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel.mesh import default_mesh
+    from psa_simulation_ode_rk_mvp_dispersion.parallel.mesh import default_mesh
 
     grid, co, A0 = _soliton_setup(n_samples=128)
     rng = np.random.default_rng(7)

@@ -6,8 +6,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import sbs
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import sbs
 
 
 def _run(g_B, p_stokes=1e-6, alpha=0.0, gamma=2.0, db=0.5, z_max=10.0,
@@ -222,7 +222,7 @@ def test_run_sbs_batch_sharded_matches_unsharded():
     single-device batch exactly (embarrassingly SPMD relaxation)."""
     import jax
 
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+    from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
     assert len(jax.devices()) == 8
     B = 11  # not divisible by 8: exercises padding

@@ -10,7 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import psa_tpu as psa
+import psa
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
 REL_TOL = 1e-9

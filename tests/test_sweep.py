@@ -8,10 +8,10 @@ import jax
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.ops.rhs import RHSCoeffs
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pmesh
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import sweep as sw
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.ops.rhs import RHSCoeffs
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pmesh
+from psa_simulation_ode_rk_mvp_dispersion.parallel import sweep as sw
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
 

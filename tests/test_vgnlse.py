@@ -11,10 +11,10 @@ the defining property of the integrable limit).
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import vgnlse as vg
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.models import vgnlse as vg
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 T0 = 1e-12
 BETA2 = -2.0e-26
@@ -319,7 +319,7 @@ def test_saved_grid_partial_tail_contract():
 
 
 def test_batch_trajectories_match_single_runs():
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.gnlse import (
+    from psa_simulation_ode_rk_mvp_dispersion.models.gnlse import (
         TimeGrid, gaussian_pulse)
 
     grid = TimeGrid(n_samples=64, t_window_s=40e-12)

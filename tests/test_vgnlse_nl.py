@@ -18,10 +18,10 @@ resolution is irrelevant):
 import numpy as np
 import pytest
 
-import psa_tpu as psa
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import gnlse as gn
-from psa_simulation_ode_rk_mvp_dispersion_tpu.models import vgnlse as vg
-from psa_simulation_ode_rk_mvp_dispersion_tpu.parallel import mesh as pm
+import psa
+from psa_simulation_ode_rk_mvp_dispersion.models import gnlse as gn
+from psa_simulation_ode_rk_mvp_dispersion.models import vgnlse as vg
+from psa_simulation_ode_rk_mvp_dispersion.parallel import mesh as pm
 
 T0 = 1e-12
 BETA2 = -2.0e-26
@@ -212,8 +212,8 @@ def test_vector_supercontinuum_fission_preserves_polarization():
     polarizations >5x, and in the Manakov + isotropic-Raman limit the
     dynamics depend only on total power, so the polarization state -- and
     the DOP -- is preserved through the whole supercontinuum."""
-    from psa_simulation_ode_rk_mvp_dispersion_tpu import experiments as ex
-    from psa_simulation_ode_rk_mvp_dispersion_tpu.models.vgnlse import (
+    from psa_simulation_ode_rk_mvp_dispersion import experiments as ex
+    from psa_simulation_ode_rk_mvp_dispersion.models.vgnlse import (
         degree_of_polarization,
     )
 
@@ -258,18 +258,18 @@ def test_runner_trajectories_and_validation():
     assert okt.all()
     np.testing.assert_allclose(At[:, -1], Af, rtol=0,
                                atol=1e-13 * np.abs(Af).max())
-    # pallas engine runs the nl terms in-kernel (interpret parity here;
-    # full kernel coverage in test_pallas_vgnlse.py)
-    cfg32 = psa.custom_simulation_config(z_max=0.4, dz=0.01, save_every=10,
-                                         precision="x32")
-    co32 = vg.make_vgnlse_coeffs(grid, disp, gamma_W_m=GAMMA,
-                                 coupling="manakov", precision="x32")
-    nl32 = gn.make_nl_terms(grid, f_raman=0.18, omega0=OMEGA_REF,
-                            precision="x32")
-    _pk_sc, Af_sc, ok_sc = vg.solve_vgnlse_batch(cfg32, co32, A0, nl=nl32,
-                                                 engine="scan")
-    _pk_pl, Af_pl, ok_pl = vg.solve_vgnlse_batch(cfg32, co32, A0, nl=nl32,
-                                                 engine="pallas")
-    assert np.array_equal(ok_sc, ok_pl)
-    np.testing.assert_allclose(Af_pl, Af_sc, rtol=0,
-                               atol=2e-4 * np.abs(Af_sc).max())
+    # the x32 tier runs the nl terms to f32 class against x64
+    kw = dict(z_max=0.4, dz=0.01, save_every=10)
+    out = {}
+    for prec in ("x32", "x64"):
+        co_p = vg.make_vgnlse_coeffs(grid, disp, gamma_W_m=GAMMA,
+                                     coupling="manakov", precision=prec)
+        nl_p = gn.make_nl_terms(grid, f_raman=0.18, omega0=OMEGA_REF,
+                                precision=prec)
+        out[prec] = vg.solve_vgnlse_batch(
+            psa.custom_simulation_config(precision=prec, **kw), co_p, A0,
+            nl=nl_p)
+    (_pk32, Af32, ok32), (_pk64, Af64, ok64) = out["x32"], out["x64"]
+    assert np.array_equal(ok32, ok64)
+    np.testing.assert_allclose(Af32, Af64, rtol=0,
+                               atol=2e-4 * np.abs(Af64).max())
